@@ -1,7 +1,7 @@
-// Host-side symbolic engine for the TPU hierarchical block-sparse library.
+// Host-side symbolic engine for the hierarchical block-sparse library.
 //
 // Role (SURVEY.md section 8.2): the reference's quadtree walk is host C++;
-// in the TPU design the device executes batched MXU GEMMs over static-shape
+// in this design the device executes batched leaf GEMMs over static-shape
 // arrays, and the host's job shrinks to *exact symbolic planning* — sizing
 // pair/output capacities before tracing so the compiled program wastes no
 // FLOPs on padding.  These routines are the hot host path for large plans

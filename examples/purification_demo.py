@@ -1,5 +1,5 @@
 """Density-matrix purification demo: the reference's flagship workload
-(BASELINE.json:9) end-to-end on the TPU-native framework.
+(BASELINE.json:9) end-to-end on the framework.
 
 Builds a banded model "Hamiltonian", maps its spectrum into [0, 1],
 runs SP2 purification with norm-based block truncation at a fixed
@@ -14,10 +14,10 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm_ex
-from hierarchical_block_sparse_lib_tpu.models.purification import purify_scan
-from hierarchical_block_sparse_lib_tpu.utils.profiling import Counters
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.models.purification import purify_scan
+from hierarchical_block_sparse_lib.utils.profiling import Counters
 
 
 def main():
@@ -51,20 +51,19 @@ def main():
         beta=-1.0 / (hi - lo),
     )
 
-    pc, oc, mbr, mcr = plan_spgemm_ex(X, X)
+    pc, oc = plan_spgemm(X, X)
     nb = -(-n // b)
     # The iterate densifies mid-purification before truncation
     # re-sparsifies it: budget for the dense bound when it is small,
     # else a generous multiple of the initial plan.
     pair_cap = min(nb**3, max(16 * pc, 1))
     out_cap = min(nb * nb, max(16 * oc, 1))
-    mbr, mcr = min(nb, 8 * mbr), min(nb, 8 * mcr)
 
     cnt = Counters()
     with cnt.timed():
         Xf, stats = purify_scan(
             X, 40, tau=1e-7, pair_cap=pair_cap, out_cap=out_cap,
-            target_trace=nocc, row_caps=(mbr, mcr),
+            target_trace=nocc,
         )
         np.asarray(Xf.data)  # materialize
     for s_i in range(40):

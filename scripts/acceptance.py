@@ -1,10 +1,10 @@
-"""Full-size acceptance checks on the real TPU (the BASELINE.json:5
+"""Full-size acceptance checks on the GPU (the BASELINE.json:5
 criterion: match the reference's numerics on its test matrices).
 
 Run: python scripts/acceptance.py      (~2-4 min warm, longer cold)
 
 Unlike tests/ (CPU, reduced sizes, interpret-mode kernels), this drives
-the compiled TPU kernels at the reference's stated configs and compares
+the compiled GPU kernels at the reference's stated configs and compares
 against f64 dense oracles.  Results recorded in BASELINE.md.
 """
 
@@ -17,12 +17,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir", "/root/.jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm_ex
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.utils.cache import enable_compile_cache
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 TOL = 1e-5  # f32-faithful vs f64 oracle
 
@@ -39,8 +38,8 @@ def b1_banded():
     n, bw = 4096, 64
     r, c, v = gen.banded_coo(n, bw, seed=0)
     A = hbsm.coarsen(hbsm.from_coo(r, c, v, n, block_size=16), 8)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
-    C, info = hbsm.spgemm(A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr))
+    pc, oc = plan_spgemm(A, A)
+    C, info = hbsm.spgemm(A, A, pair_cap=pc, out_cap=oc)
     assert not bool(info.pair_overflow) and not bool(info.out_overflow)
     dA = gen.dense_oracle(r, c, v, n).astype(np.float64)
     exact = dA @ dA
@@ -67,9 +66,9 @@ def b2_chain():
         )
 
     A, B = mk(11), mk(12)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+    pc, oc = plan_spgemm(A, B)
     C, info = hbsm.spgemm(
-        A, B, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr), alpha=0.5
+        A, B, pair_cap=pc, out_cap=oc, alpha=0.5
     )
     assert not bool(info.pair_overflow) and not bool(info.out_overflow)
     D = hbsm.scale(hbsm.add(C, A, beta=0.25), 2.0)
@@ -83,7 +82,7 @@ def b2_chain():
 def b3_purification():
     """B3 (BASELINE.json:9): purification converges to the spectral
     projector with bounded error at tau=1e-7."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import purify_scan
+    from hierarchical_block_sparse_lib.models.purification import purify_scan
 
     n, b, nocc = 1024, 128, 256
     rng = np.random.default_rng(0)
@@ -99,10 +98,10 @@ def b3_purification():
         alpha=hi / (hi - lo), beta=-1.0 / (hi - lo),
     )
     nb = n // b
-    pc, oc, mbr, mcr = plan_spgemm_ex(X, X)
+    pc, oc = plan_spgemm(X, X)
     Xf, stats = purify_scan(
         X, 40, tau=1e-7, pair_cap=nb**3, out_cap=nb * nb,
-        target_trace=nocc, row_caps=(nb, nb),
+        target_trace=nocc,
     )
     assert not bool(np.asarray(stats.pair_overflow).any())
     got = np.asarray(hbsm.to_dense(Xf)).astype(np.float64)
@@ -114,12 +113,12 @@ def b3_purification():
 
 def b4_near_dense():
     """B4 (BASELINE.json:10) numerics at the warm-up scale (8192^2, 50%
-    block density) through BOTH the row-panel path and the column-slab
+    block density) through BOTH the direct path and the column-slab
     tier that runs the configured 32768^2 (VERDICT r2 item 6: B4 had no
     acceptance numerics check).  The f64 oracle at 32768^2 needs ~26 GB
     of host RAM, so the slab TIER is validated here at the same density
     on the same code path."""
-    from hierarchical_block_sparse_lib_tpu.ops.slab import (
+    from hierarchical_block_sparse_lib.ops.slab import (
         plan_colslab,
         spgemm_colslab,
     )
@@ -139,13 +138,13 @@ def b4_near_dense():
     exact = dA @ dA
     scale = np.abs(exact).max()
 
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
-    C, info = hbsm.spgemm(A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr))
+    pc, oc = plan_spgemm(A, A)
+    C, info = hbsm.spgemm(A, A, pair_cap=pc, out_cap=oc)
     assert not bool(info.pair_overflow) and not bool(info.out_overflow)
     rel = np.abs(
         np.asarray(hbsm.to_dense(C)).astype(np.float64) - exact
     ).max()
-    check("B4 near-dense 8192^2 50% (row-panel)", rel / scale)
+    check("B4 near-dense 8192^2 50% (direct)", rel / scale)
 
     plan = plan_colslab(A, A, 4)
     Cs, info_s = spgemm_colslab(A, A, plan=plan)
@@ -159,7 +158,7 @@ def b4_near_dense():
 def b2_leaf32_headline():
     """The HEADLINE path (VERDICT r4 item 5): the configured B2 —
     random 16384^2, 5% block density at LEAF 32 — through BOTH the
-    direct canonical spgemm (auto -> fine BD kernel) and the
+    direct canonical spgemm (auto dispatch) and the
     flat-resident FinePlan path, vs an f64 dense oracle computed on
     host (~2 GB dA + ~2 GB exact; the host dgemm takes a minute or
     two — this is the one acceptance stage that is slow by design)."""
@@ -178,22 +177,21 @@ def b2_leaf32_headline():
     exact = dA @ dA
     scale = np.abs(exact).max()
 
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    pc, oc = plan_spgemm(A, A)
     C, info = hbsm.spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr)
+        A, A, pair_cap=pc, out_cap=oc
     )
     assert not bool(info.pair_overflow) and not bool(info.out_overflow)
-    assert not bool(info.row_overflow)
     rel = np.abs(
         np.asarray(hbsm.to_dense(C)).astype(np.float64) - exact
     ).max()
-    check("B2 CONFIGURED 16384^2 leaf-32 direct (fine kernel)",
+    check("B2 CONFIGURED 16384^2 leaf-32 direct",
           rel / scale)
 
-    fplan = hbsm.make_fine_plan(A, A, pc, oc, (mbr, mcr))
+    fplan = hbsm.make_fine_plan(A, A, pc, oc)
     Af = hbsm.fine_pack(A)
     Cf, inf2 = hbsm.fine_matmul(
-        Af, Af, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr), plan=fplan
+        Af, Af, pair_cap=pc, out_cap=oc, plan=fplan
     )
     assert not bool(inf2.plan_mismatch)
     rel_f = np.abs(
@@ -205,21 +203,19 @@ def b2_leaf32_headline():
 
 
 def b1_leaf16_direct():
-    """B1 at its NATIVE leaf 16 through the fine kernel (no coarsening
+    """B1 at its NATIVE leaf 16 (no coarsening
     — the reference's own granularity; VERDICT r4 item 5)."""
     n, bw = 4096, 64
     r, c, v = gen.banded_coo(n, bw, seed=0)
     A = hbsm.from_coo(r, c, v, n, block_size=16)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
+    pc, oc = plan_spgemm(A, A)
+    from hierarchical_block_sparse_lib.ops.spgemm import (
         resolve_backend,
     )
 
-    backend = resolve_backend(
-        16, A.dtype, A.nb_cols, pc, row_caps=(mbr, mcr)
-    )
+    backend = resolve_backend(16, A.dtype)
     C, info = hbsm.spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr)
+        A, A, pair_cap=pc, out_cap=oc
     )
     assert not bool(info.pair_overflow) and not bool(info.out_overflow)
     dA = gen.dense_oracle(r, c, v, n).astype(np.float64)
@@ -237,10 +233,10 @@ def precision_modes():
     A = hbsm.coarsen(hbsm.from_coo(r, c, v, n, block_size=16), 8)
     dA = gen.dense_oracle(r, c, v, n).astype(np.float64)
     exact = dA @ dA
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    pc, oc = plan_spgemm(A, A)
     for prec, tol in (("highest", 1e-5), ("default", 2e-2)):
         C, _ = hbsm.spgemm(
-            A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
+            A, A, pair_cap=pc, out_cap=oc,
             precision=prec,
         )
         rel = np.abs(
@@ -250,6 +246,7 @@ def precision_modes():
 
 
 if __name__ == "__main__":
+    enable_compile_cache()
     print(f"backend: {jax.default_backend()} {jax.devices()}")
     b1_banded()
     b1_leaf16_direct()

@@ -34,7 +34,7 @@ os.environ.setdefault(
 
 import numpy as np  # noqa: E402
 
-from b5_route_evidence import b5_mix  # noqa: E402
+from hierarchical_block_sparse_lib.utils.generators import b5_mix  # noqa: E402
 
 NB = 1024
 B = 128
@@ -45,12 +45,12 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    import hierarchical_block_sparse_lib_tpu as hbsm
-    from hierarchical_block_sparse_lib_tpu.models.purification import sp2_step
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
-        plan_spgemm, plan_spgemm_ex,
+    import hierarchical_block_sparse_lib as hbsm
+    from hierarchical_block_sparse_lib.models.purification import sp2_step
+    from hierarchical_block_sparse_lib.ops.spgemm import (
+        plan_spgemm,
     )
-    from hierarchical_block_sparse_lib_tpu.parallel import dist, route
+    from hierarchical_block_sparse_lib.parallel import dist, route
 
     P = 8
     A = b5_mix(NB, B)
@@ -113,7 +113,7 @@ def main():
         As, hbsm.eye(NB * B, B), beta=0.5, cap=As.cap + NB
     )
     tau, nocc = 1e-7, NB * B // 2
-    pc2, oc2, mbr2, mcr2 = plan_spgemm_ex(X, X)
+    pc2, oc2 = plan_spgemm(X, X)
     t0 = time.time()
     # cap must cover the UNION support (X densifies before it
     # re-sparsifies; at tau=1e-7 one step drops almost nothing) — the
@@ -186,10 +186,6 @@ def main():
         f"expect_ids): {int(sst['n_block_pairs']):,} pairs, "
         f"{nyg:,} kept blocks, max rel **{rel_y:.2e}** vs the "
         f"single-process `sp2_step`; overflow/plan_mismatch clean",
-        f"- CPU-mesh wall times (not perf evidence — the virtual mesh "
-        f"shares one host): spgemm {t_routed:.1f}s routed vs "
-        f"{t_ref:.1f}s single-process; SP2 {t_sp2:.1f}s vs "
-        f"{t_sp2_ref:.1f}s",
     ]
     out = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

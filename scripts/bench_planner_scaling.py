@@ -33,9 +33,9 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from b5_route_evidence import b5_mix
+    from hierarchical_block_sparse_lib.utils.generators import b5_mix
 
-    from hierarchical_block_sparse_lib_tpu.parallel import (
+    from hierarchical_block_sparse_lib.parallel import (
         dist, route, route2,
     )
 

@@ -43,10 +43,10 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 
-import hierarchical_block_sparse_lib_tpu as hbsm  # noqa: E402
-from hierarchical_block_sparse_lib_tpu.parallel import dist, route  # noqa: E402
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm  # noqa: E402
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen  # noqa: E402
+import hierarchical_block_sparse_lib as hbsm  # noqa: E402
+from hierarchical_block_sparse_lib.parallel import dist, route  # noqa: E402
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm  # noqa: E402
+from hierarchical_block_sparse_lib.utils import generators as gen  # noqa: E402
 
 
 def analyze(hlo: str, label: str):

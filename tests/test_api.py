@@ -2,10 +2,10 @@
 
 import numpy as np
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.api import HierarchicalBlockSparseMatrix
-from hierarchical_block_sparse_lib_tpu.core.block_matrix import Params
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.api import HierarchicalBlockSparseMatrix
+from hierarchical_block_sparse_lib.core.block_matrix import Params
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 def _coo(n=96, bw=10, seed=0):
@@ -100,11 +100,11 @@ def test_multiply_plan_cache():
     """Repeated fixed-structure multiplies reuse the frozen plan
     (VERDICT r2 weak 8): the host symbolic planner runs once per
     structure, results stay exact, and a structure change replans."""
-    import hierarchical_block_sparse_lib_tpu.api as api_mod
-    from hierarchical_block_sparse_lib_tpu.api import (
+    import hierarchical_block_sparse_lib.api as api_mod
+    from hierarchical_block_sparse_lib.api import (
         HierarchicalBlockSparseMatrix,
     )
-    from hierarchical_block_sparse_lib_tpu.core.block_matrix import Params
+    from hierarchical_block_sparse_lib.core.block_matrix import Params
 
     n, b = 96, 16
     r, c, v = _coo(n, seed=5)

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 @pytest.mark.parametrize("n,bw,b", [(64, 5, 8), (128, 16, 16), (100, 7, 16)])

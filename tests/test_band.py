@@ -4,9 +4,9 @@ path (VERDICT r2 item 1: the honest fine-leaf B1 engine)."""
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops import band as bd
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops import band as bd
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 def _banded_dense(n, w, seed=0):
@@ -128,7 +128,7 @@ def test_band_mm_matches_block_path():
     n, w = 512, 64
     dA, (r, c, v) = _banded_dense(n, w)
     Ablk = hbsm.from_coo(r, c, v, n, block_size=128)
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+    from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
     pc, oc = plan_spgemm(Ablk, Ablk)
     Cblk, _ = hbsm.spgemm(Ablk, Ablk, pair_cap=pc, out_cap=oc)
@@ -147,12 +147,12 @@ def test_band_probe_and_api_residency():
     declines others; the OO multiply keeps band residency and matches
     the block path numerically."""
     import numpy as np
-    import hierarchical_block_sparse_lib_tpu as hbsm
-    from hierarchical_block_sparse_lib_tpu.api import (
+    import hierarchical_block_sparse_lib as hbsm
+    from hierarchical_block_sparse_lib.api import (
         HierarchicalBlockSparseMatrix,
     )
-    from hierarchical_block_sparse_lib_tpu.core.block_matrix import Params
-    from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+    from hierarchical_block_sparse_lib.core.block_matrix import Params
+    from hierarchical_block_sparse_lib.utils import generators as gen
 
     n, bw = 512, 48
     r, c, v = gen.banded_coo(n, bw, seed=0)

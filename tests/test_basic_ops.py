@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 def _pair(n=96, b=16, seed=0):
@@ -173,7 +173,7 @@ def test_coarsen():
 
 
 def test_add_with_info_overflow():
-    import hierarchical_block_sparse_lib_tpu as hbsm
+    import hierarchical_block_sparse_lib as hbsm
     import numpy as np
 
     rng = np.random.default_rng(9)
@@ -196,7 +196,7 @@ def test_add_with_info_overflow():
 
 
 def test_syrk():
-    import hierarchical_block_sparse_lib_tpu as hbsm
+    import hierarchical_block_sparse_lib as hbsm
     import numpy as np
 
     rng = np.random.default_rng(13)
@@ -215,10 +215,10 @@ def test_syrk():
     assert int(info.n_block_pairs) > 0
     # Symmetry exploitation: upper-only enumeration does (full + diag)/2
     # pairs — strictly fewer than the generic multiply.
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
+    from hierarchical_block_sparse_lib.ops.spgemm import (
         plan_spgemm, plan_syrk,
     )
-    from hierarchical_block_sparse_lib_tpu.ops import basic
+    from hierarchical_block_sparse_lib.ops import basic
 
     full_pairs, _ = plan_spgemm(A, basic.transpose(A))
     plan = plan_syrk(A)
@@ -241,10 +241,10 @@ def test_syrk():
 
 
 def test_syrk_rows_backend():
-    """syrk through the row-panel kernel (in-kernel triu skip) must match
-    the oracle — exercised at b=128 in interpret mode."""
+    """syrk through the segment kernel (upper-triangle pairs only) must
+    match the oracle — exercised at b=128 in interpret mode."""
     import jax.numpy as jnp
-    import hierarchical_block_sparse_lib_tpu as hbsm
+    import hierarchical_block_sparse_lib as hbsm
 
     rng = np.random.default_rng(17)
     b, nb = 128, 4
@@ -256,7 +256,7 @@ def test_syrk_rows_backend():
             if not keep[i, j]:
                 d[i * b:(i + 1) * b, j * b:(j + 1) * b] = 0
     A = hbsm.from_dense(d, block_size=b)
-    C, info = hbsm.syrk(A, backend="rows")
+    C, info = hbsm.syrk(A, backend="segment")
     np.testing.assert_allclose(
         np.asarray(hbsm.to_dense(C)), d @ d.T, rtol=2e-4, atol=1e-2
     )
@@ -265,7 +265,7 @@ def test_syrk_rows_backend():
 
 
 def test_triu_tril_filter():
-    import hierarchical_block_sparse_lib_tpu as hbsm
+    import hierarchical_block_sparse_lib as hbsm
 
     rng = np.random.default_rng(23)
     d = rng.standard_normal((64, 64)).astype(np.float32)
@@ -283,9 +283,9 @@ def test_triu_tril_filter():
 def test_symmetrize_upper():
     """S = upper(A) mirrored down: S_ij = A_ij (i<=j), S_ji = A_ij^T —
     the fused pass behind symmetric (syrk) purification."""
-    from hierarchical_block_sparse_lib_tpu.ops.basic import symmetrize_upper
+    from hierarchical_block_sparse_lib.ops.basic import symmetrize_upper
 
-    import hierarchical_block_sparse_lib_tpu as hbsm
+    import hierarchical_block_sparse_lib as hbsm
 
     rng = np.random.default_rng(29)
     d = rng.standard_normal((64, 64)).astype(np.float32)
@@ -312,7 +312,7 @@ def test_symmetrize_upper():
 
 
 def test_gershgorin_bound():
-    import hierarchical_block_sparse_lib_tpu as hbsm
+    import hierarchical_block_sparse_lib as hbsm
     import numpy as np
 
     rng = np.random.default_rng(17)

@@ -1,20 +1,16 @@
-"""Fine-leaf (b < 128) BD row-panel kernel vs dense oracle
-(kernels/pallas_gemm_fine.py; VERDICT r4 item 1 — the configured
-16/32-leaf granularity must have a real Pallas path, not the XLA
-gather fallback).  Runs in interpret mode on the CPU conftest."""
+"""Fine leaves (b < 128, the configured 16/32 granularity) through the
+segment kernel and the flat-resident chain (ops/fine.py) vs dense
+oracles.  The kernel runs in interpret mode on the CPU conftest."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.kernels.pallas_gemm_fine import (
-    fine_spgemm,
-    supported,
-)
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
-    plan_spgemm_ex,
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.kernels.segment_gemm import supported
+from hierarchical_block_sparse_lib.ops.spgemm import (
+    plan_spgemm,
     spgemm,
 )
 
@@ -42,12 +38,10 @@ def random_fine(n_rows, n_cols, bf, density, seed=0):
 def test_fine_backend_vs_oracle(bf):
     A, dA = random_fine(8 * bf, 8 * bf, bf, 0.3, seed=1)
     B, dB = random_fine(8 * bf, 8 * bf, bf, 0.3, seed=2)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+    pc, oc = plan_spgemm(A, B)
     C, info = spgemm(
-        A, B, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="fine",
+        A, B, pair_cap=pc, out_cap=oc, backend="segment",
     )
-    assert not bool(info.row_overflow)
     np.testing.assert_allclose(
         np.asarray(hbsm.to_dense(C)), dA @ dB, rtol=1e-5, atol=1e-5
     )
@@ -61,10 +55,9 @@ def test_fine_rectangular_and_alpha():
     bf = 32
     A, dA = random_fine(8 * bf, 12 * bf, bf, 0.25, seed=3)
     B, dB = random_fine(12 * bf, 6 * bf, bf, 0.25, seed=4)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+    pc, oc = plan_spgemm(A, B)
     C, _ = spgemm(
-        A, B, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="fine", alpha=-0.5,
+        A, B, pair_cap=pc, out_cap=oc, backend="segment", alpha=-0.5,
     )
     np.testing.assert_allclose(
         np.asarray(hbsm.to_dense(C)), -0.5 * (dA @ dB), rtol=1e-5,
@@ -76,16 +69,14 @@ def test_fine_accum_and_plan():
     bf = 32
     A, dA = random_fine(8 * bf, 8 * bf, bf, 0.3, seed=5)
     D, dD = random_fine(8 * bf, 8 * bf, bf, 0.2, seed=6)
-    pc, oc0, mbr, mcr = plan_spgemm_ex(A, A)
-    from hierarchical_block_sparse_lib_tpu.runtime import native
+    pc, oc0 = plan_spgemm(A, A)
+    from hierarchical_block_sparse_lib.runtime import native
 
     out_cap = oc0 + int(D.nnz)
     plan = hbsm.make_plan(A, A, pc, accum_ids=D.ids, out_cap=out_cap)
-    # c_row_max must cover the UNION rows.
     C, info = spgemm(
         A, A, pair_cap=pc, out_cap=out_cap,
-        row_caps=(mbr, min(mcr + int(D.nnz), out_cap)),
-        backend="fine", accum=D, beta=2.0, plan=plan,
+        backend="segment", accum=D, beta=2.0, plan=plan,
     )
     assert not bool(info.plan_mismatch)
     np.testing.assert_allclose(
@@ -103,10 +94,10 @@ def test_fine_empty_rows_and_cols():
     dA[5 * bf:6 * bf, 2 * bf:3 * bf] = 1.0
     r, c = np.nonzero(dA)
     A = hbsm.from_coo(r, c, dA[r, c], n, block_size=bf)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    pc, oc = plan_spgemm(A, A)
     C, _ = spgemm(
         A, A, pair_cap=max(pc, 1), out_cap=max(oc, 1),
-        row_caps=(max(mbr, 1), max(mcr, 1)), backend="fine",
+        backend="segment",
     )
     np.testing.assert_allclose(
         np.asarray(hbsm.to_dense(C)), dA @ dA, rtol=1e-5, atol=1e-5
@@ -116,16 +107,24 @@ def test_fine_empty_rows_and_cols():
 def test_fine_matches_xla_backend_bitwise_structure():
     bf = 32
     A, dA = random_fine(16 * bf, 16 * bf, bf, 0.12, seed=8)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
-    Cf, _ = spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="fine",
-    )
+    pc, oc = plan_spgemm(A, A)
+    Cf, _ = spgemm(A, A, pair_cap=pc, out_cap=oc, backend="segment")
     Cx, _ = spgemm(A, A, pair_cap=pc, out_cap=oc, backend="xla")
     np.testing.assert_array_equal(np.asarray(Cf.ids), np.asarray(Cx.ids))
     np.testing.assert_allclose(
         np.asarray(Cf.data), np.asarray(Cx.data), rtol=1e-5, atol=1e-6
     )
+    # The flat-resident multiply takes the same numeric path, with the
+    # operands' roles swapped (C^T = B^T A^T): identical blocks.
+    Af = hbsm.fine_pack(A)
+    for backend in ("segment", "xla"):
+        Cff, _ = hbsm.fine_matmul(
+            Af, Af, pair_cap=pc, out_cap=oc, backend=backend
+        )
+        np.testing.assert_allclose(
+            np.asarray(hbsm.fine_unpack(Cff).data), np.asarray(Cx.data),
+            rtol=1e-5, atol=1e-6,
+        )
 
 
 def test_fine_flat_chain_vs_oracle():
@@ -134,14 +133,13 @@ def test_fine_flat_chain_vs_oracle():
     bf = 32
     A, dA = random_fine(8 * bf, 8 * bf, bf, 0.3, seed=11)
     D, dD = random_fine(8 * bf, 8 * bf, bf, 0.25, seed=12)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    pc, oc = plan_spgemm(A, A)
     Af = hbsm.fine_pack(A)
     Df = hbsm.fine_pack(D)
     Cf, info = hbsm.fine_matmul(
-        Af, Af, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr), alpha=2.0
+        Af, Af, pair_cap=pc, out_cap=oc, alpha=2.0
     )
     assert not bool(info.pair_overflow)
-    assert not bool(info.row_overflow)
     Ef = hbsm.fine_add(Cf, Df, beta=-1.0)
     Ef = hbsm.fine_scale(Ef, 0.5)
     dE = 0.5 * (2.0 * (dA @ dA) - dD)
@@ -168,15 +166,14 @@ def test_fine_flat_chain_vs_oracle():
 def test_fine_flat_planned_matches_unplanned():
     bf = 32
     A, dA = random_fine(8 * bf, 8 * bf, bf, 0.3, seed=13)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
-    plan = hbsm.make_fine_plan(A, A, pc, oc, (mbr, mcr))
-    assert not bool(plan.row_overflow)
+    pc, oc = plan_spgemm(A, A)
+    plan = hbsm.make_fine_plan(A, A, pc, oc)
     Af = hbsm.fine_pack(A)
     C0, _ = hbsm.fine_matmul(
-        Af, Af, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr)
+        Af, Af, pair_cap=pc, out_cap=oc
     )
     C1, info = hbsm.fine_matmul(
-        Af, Af, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr), plan=plan
+        Af, Af, pair_cap=pc, out_cap=oc, plan=plan
     )
     assert not bool(info.plan_mismatch)
     np.testing.assert_array_equal(np.asarray(C0.ids), np.asarray(C1.ids))
@@ -188,38 +185,41 @@ def test_fine_flat_planned_matches_unplanned():
     if A2.cap == A.cap:
         Af2 = hbsm.fine_pack(A2)
         _, info2 = hbsm.fine_matmul(
-            Af2, Af2, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-            plan=plan,
+            Af2, Af2, pair_cap=pc, out_cap=oc, plan=plan,
         )
         assert bool(info2.plan_mismatch)
 
 
 def test_fine_precision_default_bf16_storage():
-    """precision='default' stores bf16 operands (single-pass dots);
-    result within bf16 tolerance of the highest path."""
+    """bf16 storage at precision='default' (one bf16 pass, f32 sums):
+    result within bf16 tolerance of the oracle."""
     bf = 32
     A, dA = random_fine(8 * bf, 8 * bf, bf, 0.3, seed=15)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    A16 = hbsm.BlockMatrix(
+        ids=A.ids, data=A.data.astype(jnp.bfloat16), nnz=A.nnz,
+        n_rows=A.n_rows, n_cols=A.n_cols, block_size=bf,
+    )
+    pc, oc = plan_spgemm(A, A)
     Cd, _ = spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="fine", precision="default",
+        A16, A16, pair_cap=pc, out_cap=oc,
+        backend="segment", precision="default",
     )
     ref = dA @ dA
-    rel = np.abs(np.asarray(hbsm.to_dense(Cd)) - ref).max() / max(
-        1e-9, np.abs(ref).max()
-    )
+    rel = np.abs(
+        np.asarray(hbsm.to_dense(Cd)).astype(np.float64) - ref
+    ).max() / max(1e-9, np.abs(ref).max())
     assert rel < 2e-2, rel
 
 
 def test_fine_supported_gates():
-    assert supported(32, jnp.float32, 40, 400, 512)
-    assert supported(16, jnp.float32, 40, 400, 512)
-    assert supported(64, jnp.float32, 40, 100, 512)
-    assert not supported(48, jnp.float32, 40, 400, 512)  # 128 % 48 != 0
-    assert not supported(128, jnp.float32, 40, 400, 512)  # rows kernel's job
-    assert not supported(32, jnp.float64, 40, 400, 512)
-    assert not supported(32, jnp.float32, 40, 400, 8192)  # SMEM postable
-    assert not supported(32, jnp.float32, 4000, 40000, 512)  # VMEM
+    assert supported(16, jnp.float32)
+    assert supported(32, jnp.float32)
+    assert supported(64, jnp.bfloat16)
+    assert supported(128, jnp.float32)
+    assert not supported(8, jnp.float32)  # below Triton's smallest dot
+    assert not supported(48, jnp.float32)  # not a power of two
+    assert not supported(32, jnp.float64)  # f64: the XLA path
+    assert not supported(32, jnp.float16)
 
 
 def test_fine_transpose_flags():
@@ -228,13 +228,12 @@ def test_fine_transpose_flags():
     bf = 32
     A, dA = random_fine(8 * bf, 8 * bf, bf, 0.25, seed=9)
     B, dB = random_fine(8 * bf, 8 * bf, bf, 0.25, seed=10)
-    from hierarchical_block_sparse_lib_tpu.ops import basic
+    from hierarchical_block_sparse_lib.ops import basic
 
     At = basic.transpose(A)
-    pc, oc, mbr, mcr = plan_spgemm_ex(At, B)
+    pc, oc = plan_spgemm(At, B)
     C, _ = spgemm(
-        A, B, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="fine", transpose_a=True,
+        A, B, pair_cap=pc, out_cap=oc, backend="segment", transpose_a=True,
     )
     np.testing.assert_allclose(
         np.asarray(hbsm.to_dense(C)), dA.T @ dB, rtol=1e-5, atol=1e-5
@@ -245,7 +244,7 @@ def test_fine_trace_and_sp2_step():
     """Purification at the reference's fine granularity: fine_trace
     matches the dense trace; fine_sp2_step matches the canonical
     sp2_step (same support, values to f32 tolerance)."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         sp2_step,
     )
 
@@ -269,12 +268,11 @@ def test_fine_trace_and_sp2_step():
     np.testing.assert_allclose(
         float(hbsm.fine_trace(Xf)), float(np.trace(dX)), rtol=1e-5
     )
-    pc, oc, mbr, mcr = plan_spgemm_ex(X, X)
+    pc, oc = plan_spgemm(X, X)
     nocc = nocc0
     tau = 1e-7
     Yf, (t, info) = hbsm.fine_sp2_step(
-        Xf, tau, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        target_trace=nocc, cap=oc,
+        Xf, tau, pair_cap=pc, out_cap=oc, target_trace=nocc, cap=oc,
     )
     assert not bool(info.pair_overflow)
     Yc, _ = sp2_step(
@@ -293,8 +291,7 @@ def test_fine_trace_and_sp2_step():
     Zf = Xf
     for _ in range(25):
         Zf, _ = hbsm.fine_sp2_step(
-            Zf, tau, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-            target_trace=nocc, cap=oc,
+            Zf, tau, pair_cap=pc, out_cap=oc, target_trace=nocc, cap=oc,
         )
     dZ = np.asarray(hbsm.to_dense(hbsm.fine_unpack(Zf))).astype(np.float64)
     assert np.abs(dZ @ dZ - dZ).max() < 1e-2

@@ -8,13 +8,13 @@ import pytest
 
 import jax.numpy as jnp
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.kpack import (
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.kpack import (
     kpack_spgemm,
     plan_kpack,
 )
-from hierarchical_block_sparse_lib_tpu.ops.repack import coarsen, plan_coarsen
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
+from hierarchical_block_sparse_lib.ops.repack import coarsen, plan_coarsen
+from hierarchical_block_sparse_lib.ops.spgemm import (
     plan_spgemm,
     plan_spgemm_ex,
 )

@@ -5,13 +5,13 @@ pair-enumeration path — the occupancy-aware fine-leaf engine
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.leafpack import (
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.leafpack import (
     leafpack_spgemm,
     plan_leafpack,
 )
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 def _oracle_check(A, B, dA, dB, strip_rows=128, alpha=1.0):
@@ -45,7 +45,7 @@ def test_banded_leafpack():
     A = hbsm.from_coo(r, c, v, n, block_size=b)
     plan = _oracle_check(A, A, dA, dA)
     # Banded panels must beat tile-padding: inflation well under the
-    # measured 7.0x of coarsen-to-128 (BENCH_r02).
+    # counted 7.0x for coarsen-to-128 (from the plans).
     assert plan.inflation < 5.5
 
 

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
-from hierarchical_block_sparse_lib_tpu.utils.profiling import Counters
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.utils.profiling import Counters
 
 
 def test_counters_accumulate():

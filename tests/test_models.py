@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.models.purification import purify, sp2_step
-from hierarchical_block_sparse_lib_tpu.models.polynomial import polynomial
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.models.purification import purify, sp2_step
+from hierarchical_block_sparse_lib.models.polynomial import polynomial
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
 
 def _hamiltonian(n, b, seed=0):
@@ -123,7 +123,7 @@ def test_polynomial_matches_dense_horner():
 
 
 def test_inverse_sqrt_newton_schulz():
-    from hierarchical_block_sparse_lib_tpu.models.inverse_factor import (
+    from hierarchical_block_sparse_lib.models.inverse_factor import (
         inv_sqrt_newton_schulz,
     )
 
@@ -151,7 +151,7 @@ def test_inverse_sqrt_newton_schulz():
 
 def test_chebyshev_fermi_expansion():
     """Chebyshev expansion of a smooth function of H vs dense eigensolve."""
-    from hierarchical_block_sparse_lib_tpu.models.chebyshev import (
+    from hierarchical_block_sparse_lib.models.chebyshev import (
         chebyshev_apply,
         chebyshev_coeffs,
     )
@@ -186,7 +186,7 @@ def test_polynomial_planned_identical_and_drift_flagged():
     """plan_polynomial + polynomial(plans=): bit-identical Horner
     evaluation; a same-capacity structural drift of A is folded into
     the overflow flag (a capacity change fails loudly at trace)."""
-    from hierarchical_block_sparse_lib_tpu.models.polynomial import (
+    from hierarchical_block_sparse_lib.models.polynomial import (
         plan_polynomial, polynomial,
     )
 
@@ -225,7 +225,7 @@ def test_polynomial_planned_identical_and_drift_flagged():
 def test_newton_schulz_planned_identical_and_drift_flagged():
     """plan_inv_sqrt + inv_sqrt_newton_schulz(plans=): bit-identical to
     the unplanned scan; structure drift folded into the overflow flag."""
-    from hierarchical_block_sparse_lib_tpu.models.inverse_factor import (
+    from hierarchical_block_sparse_lib.models.inverse_factor import (
         inv_sqrt_newton_schulz, plan_inv_sqrt,
     )
 
@@ -275,7 +275,7 @@ def test_chebyshev_planned_identical_and_drift_flagged():
     """plan_chebyshev + chebyshev_apply(plans=): bit-identical to the
     unplanned expansion (for any coefficient vector of the planned
     length), structural drift folded into the overflow flag."""
-    from hierarchical_block_sparse_lib_tpu.models.chebyshev import (
+    from hierarchical_block_sparse_lib.models.chebyshev import (
         chebyshev_apply, chebyshev_coeffs, plan_chebyshev,
     )
 
@@ -341,7 +341,7 @@ def test_chebyshev_planned_identical_and_drift_flagged():
 def test_profile_purify_tight_caps_identical_trajectory():
     """profile_purify returns tight caps; purify_scan at those caps
     reproduces the loose-cap run exactly (caps only affect overflow)."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         profile_purify, purify_scan,
     )
 
@@ -388,7 +388,7 @@ def test_plan_purify_identical_and_mismatch_flagged():
     bit-identical to the unplanned scan; a stale plan (input structure
     diverged from the planned trajectory) is reported per step in
     `stats.plan_mismatch`, never silent."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         plan_purify, profile_purify, purify_scan,
     )
 
@@ -434,7 +434,7 @@ def test_planned_scan_lowers_sort_free():
 
     import jax
 
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         plan_purify, profile_purify, purify_scan,
     )
 
@@ -463,7 +463,7 @@ def test_purify_engine_scf_cycles_with_drift():
     """PurifyEngine: plans once, reuses across cycles with identical
     structure, auto-replans on structural drift — every cycle's result
     matches the unplanned oracle scan exactly."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         PurifyEngine, profile_purify, purify_scan,
     )
 
@@ -498,7 +498,7 @@ def test_purify_engine_scf_cycles_with_drift():
     # The drift pre-check (VERDICT r2 weak 6) must catch the stale plan
     # BEFORE the scan: exactly ONE scan runs for the drifted cycle (at
     # the fresh plan), not a wasted stale run + rerun.
-    import hierarchical_block_sparse_lib_tpu.models.purification as pur
+    import hierarchical_block_sparse_lib.models.purification as pur
 
     calls = []
     orig_scan = pur.purify_scan
@@ -525,7 +525,7 @@ def test_planned_symmetric_purification():
     (upper-triangle count reported), exact elementwise symmetry, zero
     per-step structural work, result matches the generic planned scan
     within mirroring rounding, and a stale plan stays loud."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         plan_purify, profile_purify, purify_scan,
     )
 
@@ -565,7 +565,7 @@ def test_planned_symmetric_purification():
     x1[:b, -b:] = 0.05
     x1[-b:, :b] = 0.05
     X1 = hbsm.from_dense((x1 + x1.T) / 2, block_size=b)
-    from hierarchical_block_sparse_lib_tpu.ops import repack as repack_mod
+    from hierarchical_block_sparse_lib.ops import repack as repack_mod
 
     if int(X1.nnz) <= prof.cap:
         _, s_bad = purify_scan(
@@ -577,7 +577,7 @@ def test_planned_symmetric_purification():
 def test_purify_engine_symmetric():
     """PurifyEngine(symmetric=True): the planned-symmetric tier through
     the SCF runner — plans once, reuses, converges to the projector."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         PurifyEngine,
     )
 

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.core.block_matrix import SENTINEL
-from hierarchical_block_sparse_lib_tpu.runtime import native
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.core.block_matrix import SENTINEL
+from hierarchical_block_sparse_lib.runtime import native
 
 
 def _random_ids(nb_rows, nb_cols, n, cap, seed):
@@ -86,7 +86,7 @@ def test_plan_spamm_matches_numpy(tau):
 
 
 def test_symbolic_spgemm_matches_device():
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import spgemm_symbolic
+    from hierarchical_block_sparse_lib.ops.spgemm import spgemm_symbolic
 
     rng = np.random.default_rng(11)
     n, b = 128, 16

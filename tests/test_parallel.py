@@ -5,10 +5,10 @@ import numpy as np
 import jax
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.parallel import dist
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.parallel import dist
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 @pytest.fixture(scope="module")
@@ -73,8 +73,8 @@ def test_dist_spgemm_random(mesh):
 
 def test_dist_sp2_step_matches_single_device(mesh):
     """Distributed purification step == single-device sp2_step."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import sp2_step
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+    from hierarchical_block_sparse_lib.models.purification import sp2_step
+    from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
     n, b = 512, 32
     A, dA = _matrix(n=n, b=b, bw=48, seed=9)
@@ -111,7 +111,7 @@ def test_dist_purification_matches_single_device_loop(mesh):
     """20 distributed SP2 steps == 20 single-device steps — the flagship
     workload end-to-end on the mesh (distribution exactness; SP2's own
     convergence is covered in tests/test_models.py)."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         purify_scan,
     )
 
@@ -155,14 +155,14 @@ def dist_mod_sp2(Xd, mesh, pc, oc, n):
 
 @pytest.fixture(scope="module")
 def mesh2d():
-    from hierarchical_block_sparse_lib_tpu.parallel import dist2d
+    from hierarchical_block_sparse_lib.parallel import dist2d
 
     assert len(jax.devices()) >= 4
     return dist2d.make_mesh2d(2)
 
 
 def test_dist2d_roundtrip(mesh2d):
-    from hierarchical_block_sparse_lib_tpu.parallel import dist2d
+    from hierarchical_block_sparse_lib.parallel import dist2d
 
     A, dA = _matrix(seed=5)
     Ad = dist2d.distribute2d(A, mesh2d)
@@ -172,7 +172,7 @@ def test_dist2d_roundtrip(mesh2d):
 
 
 def test_dist2d_cannon_spgemm(mesh2d):
-    from hierarchical_block_sparse_lib_tpu.parallel import dist2d
+    from hierarchical_block_sparse_lib.parallel import dist2d
 
     n, b = 512, 32
     r1, c1, v1 = gen.random_block_sparse_coo(n, b, 0.15, seed=6)

@@ -8,9 +8,9 @@ import pytest
 
 import jax
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.parallel import dist, route
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.parallel import dist, route
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 def _b5_style_matrix(n, b, seed=0, extra_random=24):
@@ -47,7 +47,7 @@ def test_routed_spgemm_matches_oracle(mesh8):
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=5e-3)
     assert not bool(stats["overflow"])
     # Counter parity with the single-device planner.
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+    from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
     n_pairs, _ = plan_spgemm(A, A)
     assert int(stats["n_block_pairs"]) == n_pairs
@@ -81,7 +81,7 @@ def test_routed_equals_dense_ring(mesh8):
     Ad = dist.distribute(A, mesh8)
     plan = route.plan_route(Ad, Ad, 8)
     C_r, _ = route.dist_spgemm_routed(Ad, Ad, mesh8, plan, backend="xla")
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+    from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
     pc, oc = plan_spgemm(A, A)
     C_ring, _, ovf = dist.dist_spgemm(
@@ -117,7 +117,7 @@ def test_routed_purification_matches_single_device(mesh8):
     """dist_purify_routed (per-step replanned routed exchange) must
     reproduce the single-device purify trajectory exactly-ish, report
     traffic evidence per step, and never overflow."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import (
+    from hierarchical_block_sparse_lib.models.purification import (
         profile_purify, purify_scan,
     )
 
@@ -154,9 +154,9 @@ def test_routed_purification_matches_single_device(mesh8):
 
 
 def test_routed_stage_row_caps_rows_backend(mesh8):
-    """Per-stage row caps (VERDICT r2 item 2): the plan carries exact
-    (max_b_row, max_c_row) per stage and the routed stages produce the
-    same result through the row-panel kernel."""
+    """The plan still carries exact per-stage (max_b_row, max_c_row)
+    (deprecated, steering nothing), and the routed stages produce the
+    same result through the segment kernel."""
     n, b = 512, 16
     d, A = _b5_style_matrix(n, b, seed=13, extra_random=8)
     Ad = dist.distribute(A, mesh8)
@@ -164,7 +164,7 @@ def test_routed_stage_row_caps_rows_backend(mesh8):
     assert len(plan.stage_row_caps) == len(plan.stages)
     assert all(br >= 1 and cr >= 1 for br, cr in plan.stage_row_caps)
     C, stats = route.dist_spgemm_routed(
-        Ad, Ad, mesh8, plan, backend="rows"
+        Ad, Ad, mesh8, plan, backend="segment"
     )
     assert not bool(stats["overflow"])
     got = np.asarray(hbsm.to_dense(dist.undistribute(C)))
@@ -320,8 +320,8 @@ def test_frozen_routed_sp2_step(mesh8):
 
 def test_frozen_aligned_route_plan(mesh8):
     """The ALIGNED frozen regime (VERDICT r4 item 4): every stage's
-    out_ids is the final union and the accumulate happens inside the
-    rows kernel; the result must match the unfrozen routed run (same
+    out_ids is the final union and the accumulate happens in the numeric
+    phase's epilogue; the result must match the unfrozen routed run (same
     support; values to f32 accumulation-order tolerance)."""
     n, b = 512, 16
     d, A = _b5_style_matrix(n, b, seed=17, extra_random=10)
@@ -353,7 +353,7 @@ def test_frozen_aligned_route_plan(mesh8):
 
 def test_frozen_aligned_sp2_step(mesh8):
     """dist_sp2_step_routed on an ALIGNED frozen plan (the path real
-    multi-stage TPU purification auto-takes): matches the unfrozen
+    multi-stage purification auto-takes): matches the unfrozen
     routed step to accumulation-order tolerance, same support."""
     n, b = 512, 16
     nocc = n // 4

@@ -8,8 +8,8 @@ import pytest
 
 import jax
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.parallel import dist, route, route2
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.parallel import dist, route, route2
 
 from tests.test_route import _b5_style_matrix
 
@@ -34,7 +34,7 @@ def test_2level_spgemm_matches_oracle(mesh_hc):
     np.testing.assert_allclose(got, d @ d, rtol=2e-4, atol=5e-3)
     assert not bool(stats["overflow"])
     # Counter parity with the single-device planner.
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+    from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
     n_pairs, _ = plan_spgemm(A, A)
     assert int(stats["n_block_pairs"]) == n_pairs

@@ -5,8 +5,8 @@ oracle — the near-dense tier for B4 at its configured 32768^2 size
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
 
 def _near_dense(n, b, density, seed):
@@ -46,7 +46,7 @@ def test_colslab_under_jit_with_plan():
     program (the bench path; plan reuse at fixed structure)."""
     import dataclasses
     import jax
-    from hierarchical_block_sparse_lib_tpu.ops.slab import (
+    from hierarchical_block_sparse_lib.ops.slab import (
         plan_colslab, spgemm_colslab,
     )
 
@@ -70,7 +70,7 @@ def test_colslab_under_jit_with_plan():
 
 def test_colslab_sparse_and_empty_slabs():
     """Banded input where some slabs carry nothing."""
-    from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+    from hierarchical_block_sparse_lib.utils import generators as gen
 
     n, b = 256, 16
     r, c, v = gen.banded_coo(n, 12, seed=3)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm, plan_spamm
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm, plan_spamm
 
 
 def _random_sparse(n, b, density, seed, scale_spread=True):
@@ -43,7 +43,7 @@ def test_spamm_error_bounded(tau):
     err = np.linalg.norm(got - exact, "fro")
     # Error bound: sum over skipped pairs of ||A_ik|| * ||B_kj||.
     # Recompute the bound explicitly on host.
-    from hierarchical_block_sparse_lib_tpu.ops.norms import block_frob_squared
+    from hierarchical_block_sparse_lib.ops.norms import block_frob_squared
 
     an = np.sqrt(np.asarray(block_frob_squared(A)))
     bn = np.sqrt(np.asarray(block_frob_squared(B)))
@@ -79,18 +79,19 @@ def test_spamm_tau_zero_is_exact():
 
 
 def test_spamm_rows_backend_matches_xla():
-    """Filtered row-panel kernel (interpret) == filtered XLA path."""
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm_ex
+    """Filtered pairs through the segment kernel (interpret) == the
+    filtered XLA path."""
+    from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
 
-    n, b, tau = 192, 8, 5e-2
+    n, b, tau = 192, 16, 5e-2
     da = _random_sparse(n, b, 0.3, 10)
     db = _random_sparse(n, b, 0.3, 11)
     A = hbsm.from_dense(da, block_size=b)
     B = hbsm.from_dense(db, block_size=b)
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, B)
+    pc, oc = plan_spgemm(A, B)
     C_r, info_r = hbsm.spgemm(
         A, B, pair_cap=pc, out_cap=oc, tau=tau, filter_by_norm=True,
-        backend="rows", row_caps=(mbr, mcr),
+        backend="segment",
     )
     C_x, info_x = hbsm.spgemm(
         A, B, pair_cap=pc, out_cap=oc, tau=tau, filter_by_norm=True,
@@ -117,7 +118,7 @@ def test_spamm_overflow_reported_when_gemm_cap_too_small():
 
 def test_spamm_error_bound_certificate():
     """The a-priori bound certifies the actual SpAMM error."""
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
+    from hierarchical_block_sparse_lib.ops.spgemm import (
         plan_spgemm, spamm_error_bound,
     )
 

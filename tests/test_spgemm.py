@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 def _mul_oracle(A, B, dA, dB, **kw):
@@ -103,9 +103,9 @@ def test_overflow_reported():
 
 
 def test_row_caps_overflow_reported():
-    """Undersized row_caps on the row-panel kernel must flag
-    row_overflow instead of silently clamping (ADVICE.md r1 high).
-    Needs a B block-row wider than the bucketed cap (multiple of 8)."""
+    """row_caps is deprecated and ignored: an undersized value changes
+    nothing and row_overflow is never set.  B has a block-row wider than
+    any per-row cap (the case a per-row kernel once had to flag)."""
     import jax.numpy as jnp
 
     b, nb = 128, 16
@@ -125,21 +125,16 @@ def test_row_caps_overflow_reported():
 
     A = mk([0, 1])  # blocks (0,0), (0,1)
     B = mk(list(range(nb)))  # block-row 0 fully dense: 16 blocks
-    # B row 0 has 16 blocks > bucket(8) = 8 -> clamped -> must be flagged.
-    _, info = hbsm.spgemm(
-        A, B, pair_cap=16, out_cap=16, backend="rows", row_caps=(8, 16)
-    )
-    assert bool(info.row_overflow)
-    # Exact caps: no flag, result matches the dense oracle.
-    C, info = hbsm.spgemm(
-        A, B, pair_cap=16, out_cap=16, backend="rows", row_caps=(16, 16)
-    )
-    assert not bool(info.row_overflow)
     dA = np.asarray(hbsm.to_dense(A))
     dB = np.asarray(hbsm.to_dense(B))
-    np.testing.assert_allclose(
-        np.asarray(hbsm.to_dense(C)), dA @ dB, rtol=2e-4, atol=1e-2
-    )
+    for caps in ((8, 16), (16, 16)):
+        C, info = hbsm.spgemm(
+            A, B, pair_cap=16, out_cap=16, backend="segment", row_caps=caps
+        )
+        assert not bool(info.row_overflow)
+        np.testing.assert_allclose(
+            np.asarray(hbsm.to_dense(C)), dA @ dB, rtol=2e-4, atol=1e-2
+        )
 
 
 def test_leaf_granularity_accounting():
@@ -208,7 +203,7 @@ def test_nonsquare_spgemm():
     )
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "segment"])
 def test_fused_accumulate(backend):
     """C = alpha*A@B + beta*D (fused BLAS-style accumulate, reference
     multiply-into-C semantics SURVEY.md C5) vs dense oracle, including
@@ -304,7 +299,7 @@ def test_planned_union_with_gemm_cap():
     pc, oc = plan_spgemm(A, A)
     tau = 0.5
     gc, _ = hbsm.plan_spamm(A, A, tau)
-    assert gc < pc  # the filter must actually shrink the MXU batch
+    assert gc < pc  # the filter must actually shrink the GEMM batch
     plan = hbsm.make_plan(
         A, A, pc, tau=tau, filter_by_norm=True, accum_ids=A.ids,
         out_cap=oc,
@@ -336,19 +331,16 @@ def test_planned_union_with_gemm_cap():
 
 
 def test_accum_aligned_matches_generic():
-    """In-kernel ALIGNED beta-accumulate (VERDICT r4 item 4): the rows
-    kernel loads the accumulator's rows instead of zeroing; result
-    must equal the generic gather-add accumulate, and a product block
+    """ALIGNED beta-accumulate (output structure = the accumulator's):
+    the segment kernel adds the accumulator block in its epilogue; the
+    result must equal the generic union accumulate, and a product block
     outside the accumulator support must be loud."""
     import dataclasses
 
     import jax.numpy as jnp
 
-    import hierarchical_block_sparse_lib_tpu as hbsm
-    from hierarchical_block_sparse_lib_tpu.ops.spgemm import (
-        plan_spgemm_ex,
-        spgemm,
-    )
+    import hierarchical_block_sparse_lib as hbsm
+    from hierarchical_block_sparse_lib.ops.spgemm import spgemm
 
     rng = np.random.default_rng(5)
     n, b = 8 * 128, 128
@@ -363,7 +355,7 @@ def test_accum_aligned_matches_generic():
         nnz=jnp.asarray(nblk, jnp.int32),
         n_rows=n, n_cols=n, block_size=b,
     )
-    pc, oc, mbr, mcr = plan_spgemm_ex(A, A)
+    pc, oc = plan_spgemm(A, A)
     C0, _ = spgemm(A, A, pair_cap=pc, out_cap=oc, backend="xla")
     # Accumulator with EXACTLY the product support (the aligned regime).
     D = dataclasses.replace(
@@ -377,20 +369,17 @@ def test_accum_aligned_matches_generic():
         ),
     )
     generic, gi = spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="rows", accum=D, beta=1.0,
+        A, A, pair_cap=pc, out_cap=oc,
+        backend="segment", accum=D, beta=1.0,
     )
     aligned, ai = spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="rows", accum=D, beta=1.0, accum_aligned=True,
+        A, A, pair_cap=pc, out_cap=oc,
+        backend="segment", accum=D, beta=1.0, accum_aligned=True,
     )
     assert not bool(ai.plan_mismatch)
     np.testing.assert_array_equal(
         np.asarray(generic.ids), np.asarray(aligned.ids)
     )
-    # Accumulation ORDER differs (products sum on top of the loaded
-    # accumulator vs beta*acc added after the product sum): f32
-    # rounding-order tolerance.
     np.testing.assert_allclose(
         np.asarray(generic.data), np.asarray(aligned.data),
         rtol=2e-4, atol=1e-5,
@@ -401,7 +390,7 @@ def test_accum_aligned_matches_generic():
     bad_ids[k - 1] = bad_ids[k - 2]  # duplicate => invalid target
     Dbad = dataclasses.replace(D, ids=jnp.asarray(bad_ids))
     _, bi = spgemm(
-        A, A, pair_cap=pc, out_cap=oc, row_caps=(mbr, mcr),
-        backend="rows", accum=Dbad, beta=1.0, accum_aligned=True,
+        A, A, pair_cap=pc, out_cap=oc,
+        backend="segment", accum=Dbad, beta=1.0, accum_aligned=True,
     )
     assert bool(bi.plan_mismatch)

@@ -5,8 +5,8 @@ miss (ragged grids, empty operands, extreme densities)."""
 import numpy as np
 import pytest
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm_ex
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm_ex
 
 
 def _rand(n, m, dens, seed):

@@ -22,9 +22,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import hierarchical_block_sparse_lib_tpu as hbsm
-from hierarchical_block_sparse_lib_tpu.ops.spgemm import plan_spgemm
-from hierarchical_block_sparse_lib_tpu.utils import generators as gen
+import hierarchical_block_sparse_lib as hbsm
+from hierarchical_block_sparse_lib.ops.spgemm import plan_spgemm
+from hierarchical_block_sparse_lib.utils import generators as gen
 
 
 @pytest.fixture()
@@ -123,7 +123,7 @@ def test_spgemm_f64(x64):
 def test_purification_f64(x64):
     """SP2 chain at f64: converges to the dense spectral projector to
     ~1e-10 — the reference-grade numerics demonstration."""
-    from hierarchical_block_sparse_lib_tpu.models.purification import purify
+    from hierarchical_block_sparse_lib.models.purification import purify
 
     n, b = 128, 16
     rng = np.random.default_rng(6)
